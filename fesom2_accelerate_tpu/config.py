@@ -35,7 +35,8 @@ class FctAleConfig:
       dt: timestep.
       dtype: floating dtype of the compute path.  float64 matches the
         reference's ``real_type = double`` (include/fesom2-accelerate.h:10)
-        and is the correctness gate; float32 is the TPU performance path.
+        and is the correctness gate; float32 (with ``flux_eps`` rescaled to
+        1e-7) halves the bytes each step moves.
     """
 
     vlimit: int = 1

@@ -3,7 +3,7 @@
 The reference's L1 is a Fortran-callable C ABI that mirrors host arrays
 into GPU memory and drives the production pipeline (reference
 include/fesom2-accelerate.h:128-236, src/fesom2-accelerate.cu:258-379).
-The TPU-native equivalent is split in two:
+Here it is split in two:
 
 * ``native/fesom2_tpu_host.cpp`` — the ``extern "C"`` surface a Fortran/C
   host links against (``f2t_init_``, ``f2t_setup_``, ``f2t_dims_``,
@@ -53,8 +53,9 @@ def setup(n_elems: int, nl: int, elem_nodes_addr: int, nlev_elem_addr: int,
     """Build the mesh + solver from host connectivity (one-time, like the
     reference's ``transfer_mesh_`` + ``alloc_var_`` phase).
 
-    backend: 0 = XLA f64 (correctness path; runs on any JAX backend),
-    1 = fused Pallas f32 chain (the TPU production path).
+    backend: 0 = f64 step (the reference's ``real_type = double``),
+    1 = f32 step (``flux_eps`` rescaled to 1e-7).  Both run the XLA stage
+    chain on whatever device JAX uses.
     dt_milli: timestep in 1e-3 units (the ABI passes integers only).
     Returns 0 on success, 1 on failure (mirrors the reference's ``istat``
     error propagation, src/fesom2-accelerate.cu:114-127)."""
@@ -74,26 +75,16 @@ def setup(n_elems: int, nl: int, elem_nodes_addr: int, nlev_elem_addr: int,
         mesh = build_mesh_from_elements(elem_nodes, nlev_elem, nl, node_xy)
         mesh.validate()
         if backend == 1:
-            import jax
-
             cfg = FctAleConfig(dt=dt_milli * 1e-3, vlimit=vlimit,
                                iter_yn=bool(iter_yn), dtype=jnp.float32,
                                flux_eps=1e-7)
-            if jax.devices()[0].platform != "tpu":
-                # CPU host without a chip: run the same pallas program
-                # through the plain interpreter so the embedding path
-                # stays exercisable everywhere
-                from fesom2_accelerate_tpu.ops.pallas import kernels as pk
-
-                pk.set_interpret(True)
-            solver = FctAleSolver(mesh, cfg, backend="pallas")
         else:
             import jax
 
             jax.config.update("jax_enable_x64", True)
             cfg = FctAleConfig(dt=dt_milli * 1e-3, vlimit=vlimit,
                                iter_yn=bool(iter_yn), dtype=jnp.float64)
-            solver = FctAleSolver(mesh, cfg, backend="xla")
+        solver = FctAleSolver(mesh, cfg)
         _SOLVER, _MESH, _CFG = solver, mesh, cfg
         return 0
     except Exception:

@@ -21,11 +21,9 @@ any corner), clamped to >= 3 levels.
 
 Real meshes arrive in arbitrary node order; callers should apply
 :func:`fesom2_accelerate_tpu.mesh.ordering.reorder_mesh` (RCM) before
-building kernels — :func:`read_fesom_mesh` does it by default.  On global
+building solvers — :func:`read_fesom_mesh` does it by default.  On global
 (spherical/periodic) meshes the RCM frontier wraps around the cycle, which
-bounds the bandwidth at roughly twice the cylinder circumference; the
-Pallas window planner then sizes windows accordingly (plan.py raises if
-locality is truly absent).
+bounds the bandwidth at roughly twice the cylinder circumference.
 """
 
 from __future__ import annotations

@@ -49,9 +49,9 @@ def generate_planar_mesh(
     assert nx >= 2 and ny >= 2 and nl >= 4
 
     # number nodes along the SHORTER grid axis: the node-index bandwidth
-    # (min(nx, ny) + 1) bounds every Pallas gather window (ops/pallas/plan.py),
-    # and window width is linear cost in the one-hot contraction kernels —
-    # the same bandwidth-minimizing numbering any mesh pipeline applies
+    # (min(nx, ny) + 1) bounds how far apart a node's neighbours lie in
+    # memory — the same bandwidth-minimizing numbering any mesh pipeline
+    # applies
     if nx <= ny:
         node_id = np.arange(nx * ny, dtype=np.int32).reshape(ny, nx)
     else:
@@ -76,8 +76,7 @@ def generate_planar_mesh(
                 tris.append((b, d, c))
     elem_nodes = np.asarray(tris, dtype=np.int32)
     # order elements by ascending min node id so element indices correlate
-    # with node indices — the layout the Pallas window planner assumes
-    # (same convention as mesh/ordering.py:reorder_mesh)
+    # with node indices (same convention as mesh/ordering.py:reorder_mesh)
     elem_nodes = elem_nodes[np.argsort(elem_nodes.min(axis=1),
                                        kind="stable")]
 
@@ -111,8 +110,8 @@ def generate_cylinder_mesh(nx: int, ny: int, nl: int,
     nx-1 back to column 0, so naive numbering has bandwidth ~N.  With
     ``reorder`` (default) the mesh is RCM-renumbered; the BFS frontier wraps
     the cycle in both directions, bounding the bandwidth at roughly twice
-    the circumference — which restores the index locality the Pallas window
-    planner requires.  Returns (mesh, node_perm | None)."""
+    the circumference — which restores index locality.  Returns
+    (mesh, node_perm | None)."""
     assert nx >= 3 and ny >= 2 and nl >= 4
     # RAW numbering runs along the meridians (y fastest), the order a
     # lat/lon file naturally arrives in: the x-seam then connects ids

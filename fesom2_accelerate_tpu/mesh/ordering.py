@@ -1,19 +1,19 @@
 """Bandwidth-reducing mesh reordering (reverse Cuthill-McKee).
 
-The Pallas gather/scatter kernels window the source arrays (ops/pallas/
-plan.py), which requires index locality: all neighbors of a tile of entities
-must fall in a bounded index range.  Generated meshes are row-major and
-already local; real FESOM meshes arrive in arbitrary order, so this module
-provides:
+The stage gathers read each node's neighbours, so they touch memory the
+way the node numbering lays it out: with a bandwidth-reducing numbering the
+neighbours of consecutive nodes lie close together in every level row, and
+stripe partitions (parallel/partition.py) keep small halos.  Generated
+meshes are row-major and already local; real FESOM meshes arrive in
+arbitrary order, so this module provides:
 
 * :func:`rcm_order` — reverse Cuthill-McKee over the node adjacency;
 * :func:`reorder_mesh` — apply node/element/edge permutations and rebuild
   the mesh (elements sorted by their minimum node, edges re-derived, which
-  orders them by min endpoint — exactly the layout the window planner
-  assumes).
+  orders them by min endpoint).
 
-This is the TPU-native analogue of the reference's reliance on the host
-model's domain-local numbering (docs/refactoring.md:31).
+This stands in for the reference's reliance on the host model's
+domain-local numbering (docs/refactoring.md:31).
 """
 
 from __future__ import annotations
@@ -145,7 +145,7 @@ def halo_fraction(mesh: Mesh, owner: np.ndarray, n_parts: int) -> float:
 
 
 def bandwidth(mesh: Mesh) -> int:
-    """Max |i - j| over element node pairs — the locality metric the Pallas
-    window size depends on."""
+    """Max |i - j| over element node pairs — the locality metric of a
+    numbering (and the halo width of a stripe partition)."""
     en = mesh.elem_nodes
     return int((en.max(axis=1) - en.min(axis=1)).max())

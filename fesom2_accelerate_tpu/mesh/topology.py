@@ -146,9 +146,8 @@ def _build_edges(elem_nodes: np.ndarray):
     # canonical orientation: n0 < n1, swapping the left/right triangles for
     # flipped edges so edge_tri[:, 0] stays the left triangle of the stored
     # direction.  With edges also sorted by min endpoint, the edges STARTING
-    # in any node range are then index-contiguous — which lets the Pallas
-    # scatter kernels use a narrow window for the n0 scatter and a separate
-    # (bandwidth-wide) window only for the n1 scatter (ops/pallas/plan.py).
+    # in any node range are then index-contiguous, and every edge has one
+    # first endpoint (n0) that can own it.
     flip = edges[:, 0] > edges[:, 1]
     edges[flip] = edges[flip][:, ::-1]
     edge_tri[flip] = edge_tri[flip][:, ::-1]

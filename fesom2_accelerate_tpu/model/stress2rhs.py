@@ -2,209 +2,35 @@
 
 The reference carries ``stress2rhs`` CPU-only as future porting scope
 (src/reference.cpp:440-480, docs/refactoring.md:404-462); here it is a
-first-class jitted op with two backends:
-
-* ``xla``   — transposed node->element incidence gather (any dtype);
-* ``pallas`` — windowed one-hot scatter kernel (f32), the same machinery as
-  the FCT-ALE chain's edge scatters (ops/pallas/kernels.py:stress2rhs_pallas).
+first-class jitted op: the element->node scatter becomes a gather over the
+transposed node->element incidence (:func:`ops.stages.stress2rhs`), in any
+float dtype.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from fesom2_accelerate_tpu.mesh.topology import Mesh
 from fesom2_accelerate_tpu.ops import stages
 from fesom2_accelerate_tpu.ops.meshdata import build_mesh_data
 
 
-def _ru(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
 class Stress2RhsSolver:
-    def __init__(self, mesh: Mesh, dtype=jnp.float32, backend: str = "xla",
-                 tile: "int | None" = None, form: str = "auto"):
-        """``form`` (pallas backend): "auto" picks packed when the mesh
-        admits it, "onehot" forces the one-hot scatter (the tuner's form
-        axis), "packed" requires the packed plan (raises otherwise)."""
+    def __init__(self, mesh: Mesh, dtype=jnp.float32):
         self.mesh = mesh
         self.dtype = dtype
-        self.backend = backend
         self.md = build_mesh_data(mesh, dtype=dtype)
-        if backend == "pallas":
-            from fesom2_accelerate_tpu.ops.pallas import (
-                kernels,
-                kernels_packed,
-            )
-            from fesom2_accelerate_tpu.ops.pallas.packed import (
-                build_packed_s2r_plan,
-            )
-            from fesom2_accelerate_tpu.ops.pallas.plan import (
-                BLOCK,
-                build_gather_plan,
-            )
-            from fesom2_accelerate_tpu.ops.pallas.step import (
-                TILE_ONEHOT,
-                default_tile,
-            )
-
-            assert dtype == jnp.float32, "pallas backend is f32-only"
-            # packed (home-slot DIA) scatter when the mesh admits it — the
-            # one-hot form wastes the MXU on 2-row operands (tuner: ~2 ms
-            # vs ~0.1 ms); one-hot remains the irregular-mesh fallback.
-            # round-5 sweep (perf/tune_core2_stress2rhs.json, 300-iter
-            # protocol, hoisted-uv kernel): packed wins at every tile;
-            # 2048 edges 1024 (0.243 vs 0.260 ms on core2)
-            pk_tile = (tile if tile is not None
-                       else min(default_tile(mesh.n_nodes), 2048))
-            Np_pk = _ru(mesh.n_nodes, pk_tile)
-            pk = (None if form == "onehot"
-                  else build_packed_s2r_plan(mesh, pk_tile, Np_pk))
-            if form == "packed" and pk is None:
-                raise ValueError("mesh does not admit the packed s2r form")
-            if pk is not None:
-                self._init_packed(mesh, kernels_packed, pk, pk_tile, Np_pk)
-                return
-            # one-hot scatter: contraction cost grows with window width, so
-            # the small tile wins (utils/tuning.tune_stress2rhs sweep)
-            TILE = TILE_ONEHOT if tile is None else tile
-            N, E = mesh.n_nodes, mesh.n_elems
-            ne_valid = np.arange(mesh.node_elems.shape[1])[None, :] < (
-                mesh.node_elems_num[:, None]
-            )
-            ne_idx = np.where(mesh.node_elems >= 0, mesh.node_elems, 0)
-            p = build_gather_plan(ne_idx, ne_valid, TILE, E)
-            self._Np = _ru(N, TILE)
-            self._Ep = _ru(E, BLOCK) + p.nblocks * BLOCK
-
-            def pad_rows(a, n, fill=0):
-                out = np.full((n,) + a.shape[1:], fill, dtype=a.dtype)
-                out[: a.shape[0]] = a
-                return out
-
-            p = build_gather_plan(
-                pad_rows(ne_idx, self._Np), pad_rows(ne_valid, self._Np, False),
-                TILE, self._Ep, min_blocks=p.nblocks,
-            )
-            self._J = p.nblocks
-            self._wb2 = jnp.asarray(
-                np.stack([p.win_block, p.win_block], axis=1), jnp.int32
-            )
-            ids = [
-                jnp.asarray(
-                    pad_rows(mesh.elem_nodes[:, k:k + 1], self._Ep, fill=-1),
-                    jnp.int32,
-                )
-                for k in range(3)
-            ]
-            self._ids = ids
-            s2r = functools.partial(kernels.stress2rhs_pallas, tile=TILE,
-                                    nblocks=self._J)
-            N_, Np_, Ep_, E_ = N, self._Np, self._Ep, E
-
-            def fn(wb2, ids0, ids1, ids2, elem_area, ice_strength, sigma11,
-                   sigma12, sigma22, gradient_sca, metric_factor,
-                   inv_areamass, rhs_a, rhs_m):
-                def pe(x):  # pad element row to [1, Ep]
-                    return jnp.pad(x[None, :], ((0, 0), (0, Ep_ - E_)))
-
-                ea = pe(jnp.where(ice_strength > 0.0, elem_area, 0.0))
-                packed = jnp.concatenate(
-                    [pe(sigma11), pe(sigma12), pe(sigma22), ea,
-                     pe(metric_factor) / 3.0]
-                    + [pe(gradient_sca[k]) for k in range(6)]
-                    + [jnp.zeros((5, Ep_), jnp.float32)],
-                    axis=0,
-                )  # [16, Ep]
-
-                def pn(x):  # pad node row to [1, Np]
-                    return jnp.pad(x[None, :], ((0, 0), (0, Np_ - N_)))
-
-                out = s2r(packed, ids0, ids1, ids2, pn(inv_areamass),
-                          pn(rhs_a), pn(rhs_m), wb2)
-                return out[0, :N_], out[1, :N_]
-
-            self._fn = jax.jit(fn)
-        else:
-            # md as argument, not closure (HLO-constant-inlining footgun)
-            self._fn = jax.jit(stages.stress2rhs)
-
-    def _init_packed(self, mesh, kernels_packed, pk, tile, Np):
-        """Packed-scatter backend: element state lives as K home-slot slabs
-        (ops/pallas/packed.build_packed_s2r_plan)."""
-        self._packed = True
-        N, E = mesh.n_nodes, mesh.n_elems
-        self._pk_static = (tile, pk.J, pk.K, pk.Pk)
-        self._pk_rems = pk.rems
-        self._pk_Np = Np
-        self._pk_wb = jnp.asarray(pk.wb, jnp.int32)
-        self._pk_hc = jnp.asarray(pk.hc, jnp.int32)
-        self._pk_ind = jnp.asarray(pk.ind, jnp.int32)
-        # element-major -> packed gather map (sentinel col E = zeros)
-        self._pk_idx = jnp.asarray(
-            np.where(pk.einv >= 0, pk.einv, E).reshape(-1), jnp.int32)
-        K = pk.K
-
-        def pack_elems(idx, elem_area, ice_strength, sigma11, sigma12,
-                       sigma22, gradient_sca, metric_factor):
-            ea = jnp.where(ice_strength > 0.0, elem_area, 0.0)
-            el = jnp.concatenate(
-                [sigma11[None], sigma12[None], sigma22[None], ea[None],
-                 metric_factor[None] / 3.0, gradient_sca,
-                 jnp.zeros((5, E), jnp.float32)], axis=0)  # [16, E]
-            el = jnp.pad(el, ((0, 0), (0, 1)))  # sentinel col
-            g = jnp.take(el, idx, axis=1).reshape(16, K, Np)
-            return jnp.moveaxis(g, 1, 0).reshape(K * 16, Np)
-
-        tile_, J, K_, Pk = self._pk_static
-        rems = self._pk_rems
-
-        def call_packed(wb, hc, ind, packed, inv_areamass, rhs_a, rhs_m):
-            def pn(x):
-                return jnp.pad(x[None, :], ((0, 0), (0, Np - N)))
-
-            out = kernels_packed.stress2rhs_packed_pallas(
-                packed, hc, ind, wb, pn(inv_areamass), pn(rhs_a),
-                pn(rhs_m), tile=tile_, J=J, K=K_, Pk=Pk, rems=rems)
-            return out[0, :N], out[1, :N]
-
-        self._pack_elems = jax.jit(pack_elems)
-        self._call_packed = jax.jit(call_packed)
-
-    def pack_elem_inputs(self, elem_area, ice_strength, sigma11, sigma12,
-                         sigma22, gradient_sca, metric_factor):
-        """Element inputs -> packed resident layout (packed backend only).
-        Pack once, then drive :meth:`call_packed` per EVP substep."""
-        args = [jnp.asarray(a, self.dtype)
-                for a in (elem_area, ice_strength, sigma11, sigma12,
-                          sigma22, gradient_sca, metric_factor)]
-        return self._pack_elems(self._pk_idx, *args)
-
-    def call_packed(self, packed, inv_areamass, rhs_a, rhs_m):
-        args = [jnp.asarray(a, self.dtype)
-                for a in (inv_areamass, rhs_a, rhs_m)]
-        return self._call_packed(self._pk_wb, self._pk_hc, self._pk_ind,
-                                 packed, *args)
-
-    _packed = False
+        # md as argument, not closure (closure-captured arrays become HLO
+        # constants)
+        self._fn = jax.jit(stages.stress2rhs)
 
     def __call__(self, elem_area, ice_strength, sigma11, sigma12, sigma22,
                  gradient_sca, metric_factor, inv_areamass, rhs_a, rhs_m):
-        if self._packed:
-            packed = self.pack_elem_inputs(
-                elem_area, ice_strength, sigma11, sigma12, sigma22,
-                gradient_sca, metric_factor)
-            return self.call_packed(packed, inv_areamass, rhs_a, rhs_m)
         args = [
             jnp.asarray(a, dtype=self.dtype)
             for a in (elem_area, ice_strength, sigma11, sigma12, sigma22,
                       gradient_sca, metric_factor, inv_areamass, rhs_a, rhs_m)
         ]
-        if self.backend == "pallas":
-            return self._fn(self._wb2, *self._ids, *args)
         return self._fn(self.md, *args)

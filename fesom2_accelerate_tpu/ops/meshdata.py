@@ -2,12 +2,12 @@
 
 The reference uploads connectivity once via ``transfer_mesh_`` and keeps it
 GPU-resident (reference src/fesom2-accelerate.cu:114-127); ``MeshData`` is
-the TPU equivalent: a pytree of jnp arrays (connectivity, activity masks,
-inverse areas) built once per mesh and closed over by the jitted step.
+the equivalent here: a pytree of jnp arrays (connectivity, activity masks,
+inverse areas) built once per mesh and passed to the jitted step as an
+argument.
 
-The level axis is kept at its natural size; XLA's tiled layouts pad the
-sublane axis automatically (f32 tile 8x128), so 47 active layers cost one
-row of padding — unlike a lane-axis layout, which would pad 47 -> 128.
+The level axis is kept at its natural size and leads ([L, X], level-major),
+so a row of one level is contiguous over the mesh entities.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ Same semantics as :mod:`oracle_loops` (the literal transcription of reference
 src/reference.cpp:306-438 + docs/refactoring.md:12-316), written as masked
 dense array ops over the level-major ``[L, X]`` layout.  It is validated
 against the loop oracle on tiny meshes (tests/test_oracle.py) and then
-serves as the fast correctness anchor for the XLA / Pallas / sharded paths on
+serves as the fast correctness anchor for the XLA / sharded paths on
 large meshes — the same two-tier oracle strategy the reference uses (numpy
 ``reference()`` vs CPU ``reference.cpp``, kernels/fct_ale_a1.py:50-55).
 

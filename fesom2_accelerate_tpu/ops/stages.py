@@ -7,12 +7,13 @@ semantics; the oracle tests pin the equivalence.
 
 These ops are written so XLA can fuse every elementwise epilogue into the
 gathers: no host round-trips, no data-dependent shapes, vertical stencils as
-static shifts.  The Pallas kernels in :mod:`fesom2_accelerate_tpu.ops.pallas`
-replace individual stages where the compiler's default lowering leaves
-bandwidth on the table.
+static shifts.  Every stage runs under a ``jax.named_scope`` carrying its
+reference name (a1 .. c), so a profiler trace can be reduced by stage.
 """
 
 from __future__ import annotations
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -22,16 +23,25 @@ from fesom2_accelerate_tpu.ops.meshdata import MeshData
 _BIG = 1e30
 
 
-def _gather_nodes(field, idx):
-    """field [L, N] gathered at idx [...] -> [L, *idx.shape].
+def _scope(name: str):
+    """Run the decorated stage under ``jax.named_scope(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with jax.named_scope(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
 
-    NOTE: always gathers with a FLAT index vector and reshapes after —
-    multi-dimensional start-index arrays make XLA:TPU's gather lowering
-    explode compile time (>100x) for identical runtime."""
+
+def _gather_nodes(field, idx):
+    """field [L, N] gathered at idx [...] -> [L, *idx.shape] (one flat
+    index vector, reshaped after)."""
     flat = jnp.take(field, idx.reshape(-1), axis=1)
     return flat.reshape(field.shape[:1] + idx.shape)
 
 
+@_scope("a1")
 def a1(md: MeshData, fct_LO, ttf):
     """Reference src/reference.cpp:306-319 (kernels/fct_ale_a1.cu)."""
     tmax = jnp.where(md.node_mask, jnp.maximum(fct_LO, ttf), 0.0)
@@ -39,6 +49,7 @@ def a1(md: MeshData, fct_LO, ttf):
     return tmax, tmin
 
 
+@_scope("a2")
 def a2(md: MeshData, tmax, tmin, bignumber):
     """Reference src/reference.cpp:321-351 (kernels/fct_ale_a2.cu), with the
     CPU reference's full-depth padding semantics."""
@@ -70,6 +81,7 @@ def _vertical_window(arr, reduce_max: bool):
     return jnp.minimum(jnp.minimum(up, arr), dn)
 
 
+@_scope("a3")
 def a3_vlimit1(md: MeshData, UV_max, UV_min, fct_LO):
     """Reference src/reference.cpp:353-392 / kernels/fct_ale_a3.cu:28-44."""
     tvert_max, tvert_min = _cluster_reduce(md, UV_max, UV_min)
@@ -82,6 +94,7 @@ def a3_vlimit1(md: MeshData, UV_max, UV_min, fct_LO):
     return tmax, tmin
 
 
+@_scope("a3")
 def _a3_vlimit23(md: MeshData, UV_max, UV_min, fct_ttf_max_in, fct_LO,
                  widen: bool):
     """docs/refactoring.md:113-148 (both windows from fct_ttf_max, faithful
@@ -105,7 +118,7 @@ def _a3_vlimit23(md: MeshData, UV_max, UV_min, fct_ttf_max_in, fct_LO,
 def _cluster_reduce_via_edges(md: MeshData, tmax, tmin):
     """Element-cluster reduce WITHOUT materializing a2's UV arrays.
 
-    Algebraic identity (TPU-first fusion of reference stages a2+a3): the max
+    Algebraic identity (a fusion of reference stages a2+a3): the max
     over elements around node n of the per-element 3-node max equals the max
     over n itself and its edge-neighbors m, where neighbor m participates at
     level z iff z < nlev_edge(n, m) — because an edge's adjacent triangles
@@ -124,6 +137,7 @@ def _cluster_reduce_via_edges(md: MeshData, tmax, tmin):
     return jnp.maximum(nbr_max, self_max), jnp.minimum(nbr_min, self_min)
 
 
+@_scope("a3")
 def a3_vlimit1_fused(md: MeshData, a1_tmax, a1_tmin, fct_LO):
     """vlimit=1 bounds from a1 output directly (a2 fused away)."""
     tvert_max, tvert_min = _cluster_reduce_via_edges(md, a1_tmax, a1_tmin)
@@ -143,6 +157,7 @@ def a3(md: MeshData, UV_max, UV_min, a1_tmax, fct_LO, vlimit: int):
                         widen=(vlimit == 2))
 
 
+@_scope("b1v")
 def b1_vertical(md: MeshData, fct_adf_v):
     """Reference kernels/fct_ale_b1_vertical.cu (overwrite semantics)."""
     up = fct_adf_v[:-1]
@@ -154,6 +169,7 @@ def b1_vertical(md: MeshData, fct_adf_v):
     return plus, minus
 
 
+@_scope("b1h")
 def b1_horizontal(md: MeshData, fct_plus, fct_minus, fct_adf_h):
     """Deterministic scatter-as-gather replacement for the atomicAdd scatter
     in reference kernels/fct_ale_b1_horizontal.cu:24-27."""
@@ -164,6 +180,7 @@ def b1_horizontal(md: MeshData, fct_plus, fct_minus, fct_adf_h):
     return plus, minus
 
 
+@_scope("b2")
 def b2(md: MeshData, fct_plus, fct_minus, tmax, tmin, dt, flux_eps):
     """Reference kernels/fct_ale_b2.cu:10-11 (area_inv form)."""
     fplus = fct_plus * dt * md.area_inv + flux_eps
@@ -175,6 +192,7 @@ def b2(md: MeshData, fct_plus, fct_minus, tmax, tmin, dt, flux_eps):
     return plus, minus
 
 
+@_scope("b3v")
 def b3_vertical(md: MeshData, fct_plus, fct_minus, fct_adf_v,
                 iter_yn: bool):
     """Reference kernels/fct_ale_b3_vertical.cu / docs/refactoring.md:204-233.
@@ -197,6 +215,7 @@ def b3_vertical(md: MeshData, fct_plus, fct_minus, fct_adf_v,
     return out, None
 
 
+@_scope("b3h")
 def b3_horizontal(md: MeshData, fct_plus, fct_minus, fct_adf_h,
                   iter_yn: bool):
     """Reference kernels/fct_ale_b3_horizontal.cu:28-39."""
@@ -224,6 +243,7 @@ def edge_flux_to_nodes(md: MeshData, fct_adf_h):
     return jnp.sum(jnp.where(m, x, 0.0), axis=2)
 
 
+@_scope("c")
 def c_update_solution(md: MeshData, ttf, hnode, hnode_new, fct_LO,
                       fct_adf_v, fct_adf_h, del_ttf_advvert,
                       del_ttf_advhoriz, dt):
@@ -239,6 +259,7 @@ def c_update_solution(md: MeshData, ttf, hnode, hnode_new, fct_LO,
     return del_v, del_h
 
 
+@_scope("c")
 def c_update_LO(md: MeshData, fct_LO, fct_adf_v, fct_adf_h, hnode_new, dt):
     """docs/refactoring.md:269-286 (iterative FCT)."""
     dv = (fct_adf_v[:-1] - fct_adf_v[1:]) * dt * md.area_inv / hnode_new
@@ -247,6 +268,7 @@ def c_update_LO(md: MeshData, fct_LO, fct_adf_v, fct_adf_h, hnode_new, dt):
     return out + dh
 
 
+@_scope("stress2rhs")
 def stress2rhs(md: MeshData, elem_area, ice_strength, sigma11, sigma12,
                sigma22, gradient_sca, metric_factor, inv_areamass,
                rhs_a, rhs_m):
@@ -260,7 +282,7 @@ def stress2rhs(md: MeshData, elem_area, ice_strength, sigma11, sigma12,
     E = elem_area.shape[0]
 
     def take1(arr, i):
-        # flat-index gather (see _gather_nodes note on XLA:TPU compile time)
+        # flat-index gather, as in _gather_nodes
         return jnp.take(arr, i.reshape(-1), axis=0).reshape(i.shape)
 
     active = md.ne_k & (take1(ice_strength, idx) > 0.0)

@@ -1,6 +1,6 @@
 """Domain decomposition with one-deep node halos.
 
-Re-creates, TPU-side, the distribution contract the reference inherits from
+Re-creates, device-side, the distribution contract the reference inherits from
 host FESOM2 (docs/refactoring.md:31,47; include/fesom2-accelerate.h myDim /
 eDim node split, SURVEY §2.6):
 
@@ -25,8 +25,8 @@ Local index space per part — the **[H | owned | H] layout**: columns
 to the first owned node sits at column H-1), ``[H, H+B)`` the owned block
 (left-aligned), ``[H+B, H+2H)`` the high-side halo (left-aligned).  Because
 a 1-D block partition of a bandwidth-ordered mesh has halos only at the two
-stripe ends, this keeps local node ids ascending in global id — the index
-locality the Pallas window planner requires — while the owned block sits at
+stripe ends, this keeps local node ids ascending in global id — so each
+part keeps the global numbering's locality — while the owned block sits at
 the FIXED offset H on every part (static slicing in the sharded step).
 
 All per-part arrays are padded to the maximum size across parts so the
@@ -330,7 +330,7 @@ def _build_local_mesh(mesh, owned, halo_lo, halo_hi, elems, eds, g2l,
 
     # edges (local node ids).  Local ids are ascending in global id, so the
     # canonical n0 < n1 orientation and the sort by min endpoint survive
-    # re-indexing (the properties the Pallas split windows rely on).
+    # re-indexing.
     edges = np.zeros((Ed_loc, 2), dtype=np.int32)
     edges[: len(eds)] = g2l[mesh.edges[eds]]
     nlev_edge = np.zeros(Ed_loc, dtype=np.int32)

@@ -5,36 +5,29 @@ The step keeps the reference's three-phase structure
 ``fct_plus``/``fct_minus`` (docs/refactoring.md:199-200,235) becomes an XLA
 collective inside ``shard_map``:
 
-    pre_comm (a1..b2, local)  ->  all_gather(owned limiter blocks)   [ICI]
-                                   || b3_vertical (node-local work overlapped
-                                   ||   with the collective, like the
+    pre_comm (a1..b2, local)  ->  exchange(owned limiter columns)
+                                   || b3_vertical (node-local work that does
+                                   ||   not consume the collective, like the
                                    ||   reference's inter_comm phase)
     halo columns filled       ->  b3_horizontal, stage c (local)
 
 The collective result is consumed only by b3_horizontal, so XLA's scheduler
-is free to run the exchange concurrently with node-local work.
-
-Two backends:
-
-* ``xla``   — jnp stages per shard (any dtype; the f64 correctness path);
-* ``pallas`` — the fused 4-kernel chain per shard (f32 TPU perf path),
-  enabled by the partition's [H | owned | H] local layout which preserves
-  the index locality the Pallas window planner needs.  All parts share one
-  PallasStatic (max window blocks across parts) so shard_map sees a single
-  program.
+is free to run the exchange concurrently with node-local work.  Each shard
+runs the jnp stage chain (any float dtype); ``tracers > 1`` vmaps it over a
+leading tracer axis, and the batched collective still moves every tracer's
+halo in one exchange per step.
 
 Two exchange primitives (SURVEY §2.6 "halo-exchange communication"):
 
 * ``ppermute`` (default when the partition is neighbor-only, which holds
-  whenever block size >= mesh bandwidth): packed send lists + two one-hop
-  shifts over ICI — comm volume 2H per part, the direct analogue of the
-  host's point-to-point ``exchange_nod``;
+  whenever block size >= mesh bandwidth): packed send lists + one-hop
+  shifts between neighbouring devices — comm volume 2H per part, the direct
+  analogue of the host's point-to-point ``exchange_nod``;
 * ``allgather`` fallback for pathological partitions (comm volume P*B).
 """
 
 from __future__ import annotations
 
-import dataclasses
 import functools
 
 import jax
@@ -97,75 +90,6 @@ def _halo_fill_nbr(x, smaps, B, H, n_parts, axis_name="p"):
     return jnp.concatenate([lo, own, hi, tail], axis=-1)
 
 
-def _common_dia(statics):
-    """Unify the DIA bounds static across parts: the GLOBAL offset set is
-    the union (every part masks the slots it does not use); DIA only if
-    every part admits it — shard_map compiles one program."""
-    if any(s.a3f_dia_D == 0 for s in statics):
-        return dict(a3f_dia_D=0, a3f_dia_offs=())
-    union = sorted({int(o) for s in statics for o in s.a3f_dia_offs
-                    if o != 0})  # 0 appears only as pad (never a neighbor)
-    union = union or [0]
-    return dict(a3f_dia_D=len(union), a3f_dia_offs=tuple(union))
-
-
-def _common_packed(statics, fused: bool = False):
-    """Unify the packed-layout static across parts (element-wise max of the
-    per-slot pair tuples, padded to the max slot count); packed only if
-    EVERY part admits it — shard_map compiles one program.
-
-    ``fused``: build the common static for the FUSED-K34 sharded mode —
-    the per-slot gather offsets become the UNION across parts (every part
-    bakes the same static lane residues; absent pairs stay masked by each
-    part's zero indicator rows)."""
-    if any(s.pack_K == 0 for s in statics):
-        return dict(pack_K=0, pack_Pk_s=(), pack_Pk_g=(),
-                    pack_J_sc=0, pack_J_g=0, pack_J_pm=0,
-                    pack_g_offs=(), fuse_k34=False)
-    K = max(s.pack_K for s in statics)
-
-    def merge(key):
-        out = [0] * K
-        for s in statics:
-            for k, v in enumerate(getattr(s, key)):
-                out[k] = max(out[k], v)
-        return tuple(out)
-
-    J_sc = max(s.pack_J_sc for s in statics)
-    if fused:
-        if any(not s.fuse_k34 for s in statics):
-            raise ValueError(
-                "fused sharded mode needs every part to admit the fused "
-                "K3+K4 form (a part has fuse_k34 False)")
-        per_slot = [set() for _ in range(K)]
-        for s in statics:
-            base = 0
-            for k, n in enumerate(s.pack_Pk_g):
-                per_slot[k].update(int(o) for o in s.pack_g_offs[base:base + n])
-                base += n
-        Pk_g = tuple(len(x) for x in per_slot)
-        offs = []
-        for k in range(K):
-            offs += sorted(per_slot[k])
-        maxd = max(offs) if offs else 0
-        return dict(
-            pack_K=K, pack_Pk_s=merge("pack_Pk_s"), pack_Pk_g=Pk_g,
-            pack_J_sc=J_sc, pack_J_g=max(s.pack_J_g for s in statics),
-            pack_J_pm=J_sc + maxd // 128 + 2,
-            pack_g_offs=tuple(offs), fuse_k34=True,
-        )
-
-    return dict(
-        pack_K=K, pack_Pk_s=merge("pack_Pk_s"), pack_Pk_g=merge("pack_Pk_g"),
-        pack_J_sc=J_sc,
-        pack_J_g=max(s.pack_J_g for s in statics),
-        # split mode (default): the exchange/compute overlap needs the
-        # separate K3 (interior sweep + fixup), so fused K34 stays off
-        pack_J_pm=max(s.pack_J_pm for s in statics),
-        pack_g_offs=(), fuse_k34=False,
-    )
-
-
 def sharded_fct_ale_step(md: MeshData, cfg: FctAleConfig, exchange,
                          state: dict) -> dict:
     """One XLA-path FCT-ALE step on this device's subdomain (runs inside
@@ -215,6 +139,11 @@ def sharded_fct_ale_step(md: MeshData, cfg: FctAleConfig, exchange,
     return out
 
 
+# Edge fields live on per-part edge lists; every other state field is a
+# node (or node-interface) field.
+_EDGE_FIELDS = frozenset({"fct_adf_h", "fct_adf_h_limited"})
+
+
 class ShardedFctAleSolver:
     """Domain-decomposed FCT-ALE over a 1-D device mesh axis ``p``.
 
@@ -222,39 +151,23 @@ class ShardedFctAleSolver:
     per-part array is stacked to a ``[P, ...]`` leading axis and sharded over
     the devices, so each device holds exactly its subdomain.
 
-    backend: "xla" (any dtype) or "pallas" (fused 4-kernel chain per shard,
-    f32-only; state lives in the padded kernel layout).
-
     exchange: "auto" (ppermute when the partition is neighbor-only, else
     all-gather), "ppermute" (force; raises if not neighbor-only), or
-    "allgather"."""
+    "allgather".
+
+    tracers: Tb > 1 runs Tb tracers per shard through one compiled step
+    (``jax.vmap`` of the local step); ``init_state`` then expects per-tracer
+    [Tb, L, N]-family fields with shared [L, N] ``hnode``/``hnode_new``."""
 
     def __init__(self, mesh: Mesh, cfg: FctAleConfig = FctAleConfig(),
-                 devices=None, axis_name: str = "p", backend: str = "xla",
+                 devices=None, axis_name: str = "p",
                  exchange: str = "auto",
                  part_counts: "np.ndarray | None" = None,
-                 tracers: int = 1, fused: bool = False):
+                 tracers: int = 1):
         self.mesh = mesh
         self.cfg = cfg
         self.axis_name = axis_name
-        self.backend = backend
-        # tracers > 1 (pallas only): Tb tracers row-stacked through one
-        # compiled chain per shard; all Tb tracers' halos move in ONE
-        # ppermute per step (the collective latency amortizes across the
-        # batch).  init_state then expects per-tracer [Tb, L, N] fields
-        # with shared [L, N] hnode/hnode_new.
-        assert tracers == 1 or backend == "pallas", (
-            "tracer batching is pallas-only")
         self.tracers = tracers
-        # fused=True (pallas only): run the FUSED K3+K4 chain per shard —
-        # the exchange completes BEFORE the b3h limiting instead of
-        # overlapping a split K3.  The right trade on fast interconnects:
-        # an ICI halo slab is ~0.2 MB (microseconds) while the split
-        # chain forgoes ~0.2 ms of fusion per step to hide it
-        # (BASELINE.md "Sharded-program overhead").
-        assert not fused or backend == "pallas", (
-            "fused sharded mode is pallas-only")
-        self.fused = fused
         devices = devices if devices is not None else jax.devices()
         self.n_parts = len(devices)
         self.jax_mesh = JaxMesh(np.asarray(devices), (axis_name,))
@@ -270,7 +183,8 @@ class ShardedFctAleSolver:
 
         shard = NamedSharding(self.jax_mesh, P(axis_name))
         self._sharding = shard
-        # single-process: plain device_put.  Multi-process (multi-host): every
+        # single-process: plain device_put of a host array, which sends each
+        # shard straight to its device.  Multi-process (multi-host): every
         # process holds the full host-side array (mesh setup is redundant per
         # process, like each MPI rank building its subdomain) and contributes
         # only its addressable shards.
@@ -279,28 +193,22 @@ class ShardedFctAleSolver:
         )
 
         def put(x):
+            x = np.asarray(x)
             if not self._multiproc:
                 return jax.device_put(x, shard)
-            x = np.asarray(x)
             return jax.make_array_from_callback(
                 x.shape, shard, lambda idx: x[idx]
             )
 
         self._put = put
 
-        def put_stacked(arrays):
-            stacked = jax.tree.map(lambda *xs: np.stack(xs), *arrays)
-            return jax.tree.map(put, stacked)
-
         if exchange == "ppermute":
             emaps = (tuple(pm.hop_send_up), tuple(pm.hop_send_dn),
                      pm.halo_lo_hop, pm.halo_lo_pos,
                      pm.halo_hi_hop, pm.halo_hi_pos)
         else:
-            emaps = (jnp.asarray(pm.halo_lo_src_part),
-                     jnp.asarray(pm.halo_lo_src_idx),
-                     jnp.asarray(pm.halo_hi_src_part),
-                     jnp.asarray(pm.halo_hi_src_idx))
+            emaps = (pm.halo_lo_src_part, pm.halo_lo_src_idx,
+                     pm.halo_hi_src_part, pm.halo_hi_src_idx)
         self._hmaps = jax.tree.map(put, emaps)
         B, H = pm.B, pm.H
         n_parts = self.n_parts
@@ -315,159 +223,49 @@ class ShardedFctAleSolver:
                 _halo_fill, hmaps=maps, B=B, H=H, axis_name=axis_name
             )
 
-        if backend == "pallas":
-            from fesom2_accelerate_tpu.ops.pallas import step as pstep
+        mds = [build_mesh_data(m, dtype=cfg.dtype, xp=np)
+               for m in pm.local_meshes]
+        self.md = jax.tree.map(lambda *xs: put(np.stack(xs)), *mds)
 
-            assert cfg.dtype == jnp.float32, "pallas backend is f32-only"
-            # per-part halo-column masks drive the interior/boundary b3h
-            # split: K3 overlaps the exchange, the fixup follows it
-            halo_masks = []
-            for p in range(self.n_parts):
-                if fused:
-                    # no interior/fixup split: the exchange completes
-                    # before the fused K34 consumes the factors
-                    halo_masks.append(None)
-                    continue
-                hm = np.zeros(pm.local_meshes[p].n_nodes, dtype=bool)
-                hm[:pm.H] = True
-                hm[pm.H + pm.B:pm.H + pm.B + pm.H] = True
-                halo_masks.append(hm)
-            # pass A: independent statics; pass B: rebuild under the common
-            # (max) static so shard_map sees one program on every device
-            statics = [pstep.build_pallas_data(m, halo_mask=hm, xp=np)[1]
-                       for m, hm in zip(pm.local_meshes, halo_masks)]
-            common = dataclasses.replace(
-                statics[0],
-                Np=max(s.Np for s in statics),
-                Ep=max(s.Ep for s in statics),
-                Edp=max(s.Edp for s in statics),
-                K_lo=max(s.K_lo for s in statics),
-                K_hi=max(s.K_hi for s in statics),
-                a3f_lo_nblocks=max(s.a3f_lo_nblocks for s in statics),
-                a3f_hi_nblocks=max(s.a3f_hi_nblocks for s in statics),
-                ne_lo_nblocks=max(s.ne_lo_nblocks for s in statics),
-                ne_hi_nblocks=max(s.ne_hi_nblocks for s in statics),
-                b3h_lo_nblocks=max(s.b3h_lo_nblocks for s in statics),
-                b3h_hi_nblocks=max(s.b3h_hi_nblocks for s in statics),
-                a2_nblocks=max(s.a2_nblocks for s in statics),
-                n_fix_tiles=max(s.n_fix_tiles for s in statics),
-                a3f_un_nblocks=max(s.a3f_un_nblocks for s in statics),
-                **_common_dia(statics),
-                **_common_packed(statics, fused=fused),
-            )
-            pds = [pstep.build_pallas_data(m, common=common, halo_mask=hm,
-                                           xp=np)[0]
-                   for m, hm in zip(pm.local_meshes, halo_masks)]
-            self.ps = common
-            # surface any fast-form fallback LOUDLY: the round-3 regression
-            # (boundary parts knocking every shard onto the ~1.8x-slower
-            # one-hot kernels) stayed invisible precisely because this
-            # degradation was silent (VERDICT r3 weak #1)
-            self.degraded = []
-            if common.pack_K == 0:
-                self.degraded.append("packed->one-hot")
-            if common.a3f_dia_D == 0:
-                self.degraded.append("dia->one-hot")
-            if self.degraded:
-                import warnings
-
-                parts_bad = [
-                    p for p, s in enumerate(statics)
-                    if s.pack_K == 0 or s.a3f_dia_D == 0
-                ]
-                warnings.warn(
-                    "ShardedFctAleSolver: fast kernel forms degraded "
-                    f"({', '.join(self.degraded)}); parts failing "
-                    f"admissibility: {parts_bad} — every shard falls back "
-                    "to the one-hot kernels", RuntimeWarning, stacklevel=2)
-                if self.tracers > 1:
-                    # the batched grids exist only for the packed+DIA
-                    # kernels — fail at construction, not first step
-                    raise ValueError(
-                        "tracers>1 requires the packed+DIA production "
-                        f"forms; this mesh degrades ({self.degraded}) to "
-                        "the one-hot kernels — run with tracers=1")
-            # host-side stacked pad maps: init_state must pad with LOCAL
-            # arrays (the stacked device md is global in multi-process runs)
-            self._padmaps = jax.tree.map(
-                lambda *xs: np.stack(xs), *[pstep.pad_maps(p) for p in pds])
-            self.md = put_stacked(pds)
-            self._pstep = pstep
-
-            Tb = self.tracers
-
-            def local_step(pd, hmaps, state):
-                pd = jax.tree.map(lambda x: x[0], pd)
-                hmaps = jax.tree.map(lambda x: x[0], hmaps)
-                state = jax.tree.map(lambda x: x[0], state)
-                if Tb > 1:
-                    out = pstep.fct_ale_step_pallas_padded_batched(
-                        pd, common, cfg, state, Tb,
-                        exchange=make_exchange(hmaps),
-                    )
-                else:
-                    out = pstep.fct_ale_step_pallas_padded(
-                        pd, common, cfg, state, exchange=make_exchange(hmaps)
-                    )
-                return jax.tree.map(lambda x: x[None], out)
-
-        else:
-            self.degraded = []  # xla backend has no fast-form fallback
-            mds = [build_mesh_data(m, dtype=cfg.dtype, xp=np)
-                   for m in pm.local_meshes]
-            self.md = put_stacked(mds)
-
-            def local_step(md, hmaps, state):
-                md = jax.tree.map(lambda x: x[0], md)
-                hmaps = jax.tree.map(lambda x: x[0], hmaps)
-                state = jax.tree.map(lambda x: x[0], state)
-                out = sharded_fct_ale_step(md, cfg, make_exchange(hmaps),
-                                           state)
-                return jax.tree.map(lambda x: x[None], out)
+        def local_step(md, hmaps, state):
+            md = jax.tree.map(lambda x: x[0], md)
+            hmaps = jax.tree.map(lambda x: x[0], hmaps)
+            state = jax.tree.map(lambda x: x[0], state)
+            step = functools.partial(sharded_fct_ale_step, md, cfg,
+                                     make_exchange(hmaps))
+            if tracers > 1:
+                step = functools.partial(single.vmap_tracers, step)
+            out = step(state)
+            return jax.tree.map(lambda x: x[None], out)
 
         smapped = jax.shard_map(
             local_step,
             mesh=self.jax_mesh,
             in_specs=(P(axis_name), P(axis_name), P(axis_name)),
             out_specs=P(axis_name),
-            # pallas_call out_shapes carry no varying-mesh-axis annotation;
-            # collectives here are explicit, so skip the vma check
-            check_vma=False,
         )
-        # no donate_argnums: see model/fct_ale.py — donation degrades
-        # XLA:TPU compile and run time drastically for this program shape.
-        # Mesh data / halo maps are jit ARGUMENTS (closure-captured device
-        # arrays would be inlined as HLO constants -> extreme compile times)
+        # mesh data / halo maps are jit ARGUMENTS (closure-captured device
+        # arrays would be inlined as HLO constants)
         self._step = jax.jit(smapped)
-        self._local_step = local_step
         self._smapped = smapped
 
     # ---- state movement -------------------------------------------------
     def init_state(self, fields: dict) -> dict:
+        """Global host fields -> per-part stacks, built in numpy and put
+        straight to their shards."""
         pm = self.pm
+        dtype = self.cfg.np_dtype
         out = {}
         for k, v in fields.items():
+            v = np.asarray(v)
             if v.shape[-1] == self.mesh.n_nodes:
                 loc = part_mod.scatter_node_field(pm, v)
             elif v.shape[-1] == self.mesh.n_edges:
                 loc = part_mod.scatter_edge_field(pm, v)
             else:
                 raise ValueError(f"unknown field layout for {k}: {v.shape}")
-            out[k] = jnp.asarray(loc, dtype=self.cfg.dtype)
-        if self.backend == "pallas":
-            # pad each part to the kernel layout (stacked, then sharded);
-            # per-part edge<->slot maps ride in the stacked PallasData
-            ps = self.ps
-            if self.tracers > 1:
-                pad = jax.vmap(
-                    lambda pm_, s: self._pstep.pad_state_batched(ps, s, pm_),
-                    in_axes=0, out_axes=0)
-            else:
-                pad = jax.vmap(
-                    lambda pm_, s: self._pstep.pad_state(ps, s, pm_),
-                    in_axes=0, out_axes=0)
-            out = pad(self._padmaps, out)
-        return {k: self._put(v) for k, v in out.items()}
+            out[k] = self._put(loc.astype(dtype, copy=False))
+        return out
 
     def gather_node(self, arr) -> np.ndarray:
         if self._multiproc:
@@ -480,35 +278,20 @@ class ShardedFctAleSolver:
 
     # ---- checkpoint / resume --------------------------------------------
     # Checkpoints store GLOBAL natural-layout state (gather on save,
-    # re-scatter on load), so they are portable across partition counts,
-    # backends, and process topologies — the property the reference could
+    # re-scatter on load), so they are portable across partition counts
+    # and process topologies — the property the reference could
     # not have (its state lives in host-FESOM per-rank arrays).
 
     def gather_state(self, state: dict) -> dict:
         """Sharded state -> global natural-layout numpy dict."""
-        from fesom2_accelerate_tpu.ops.pallas.step import _EDGE_FIELDS
-
         if self._multiproc:
             from jax.experimental import multihost_utils
 
             state = {k: multihost_utils.process_allgather(v, tiled=True)
                      for k, v in state.items()}
-        state = {k: np.asarray(v) for k, v in state.items()}
-        if self.backend == "pallas":
-            ps, Tb = self.ps, self.tracers
-            if Tb > 1:
-                unpad = jax.vmap(
-                    lambda pm_, s: self._pstep.unpad_state_batched(
-                        ps, s, Tb, pm_),
-                    in_axes=0, out_axes=0)
-            else:
-                unpad = jax.vmap(
-                    lambda pm_, s: self._pstep.unpad_state(ps, s, pm_),
-                    in_axes=0, out_axes=0)
-            state = {k: np.asarray(v)
-                     for k, v in unpad(self._padmaps, state).items()}
         out = {}
         for k, v in state.items():
+            v = np.asarray(v)
             if k in _EDGE_FIELDS:
                 out[k] = part_mod.gather_edge_field(self.pm, v)
             else:
@@ -530,7 +313,7 @@ class ShardedFctAleSolver:
     def load_checkpoint(self, path):
         """Returns (sharded device state, step) — scatters the global
         checkpoint through init_state, so a run saved at P parts resumes
-        at THIS solver's partition/backend."""
+        at THIS solver's partition."""
         from fesom2_accelerate_tpu.runtime import checkpoint as ckpt
 
         st, step = ckpt.load_checkpoint(path, self.mesh, self.cfg)

@@ -3,7 +3,7 @@
 // The reference implements its host-side runtime in C++ (memory/stream
 // management, Fortran ABI shims, CPU golden reference: reference
 // include/fesom2-accelerate.h + src/fesom2-accelerate.cu + src/reference.cpp).
-// The TPU framework's native needs are different — there is no manual
+// This framework's native needs are different — there is no manual
 // device-memory choreography to write — so this library provides the two
 // pieces that remain genuinely native:
 //

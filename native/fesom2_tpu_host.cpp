@@ -1,11 +1,11 @@
-// Host-embedding C ABI: the Fortran/C-callable surface of the TPU framework.
+// Host-embedding C ABI: the Fortran/C-callable surface of the framework.
 //
 // The reference's L1 is an extern "C" library the FESOM2 Fortran host links
 // against: setup (set_mpi_rank_, transfer_mesh_, alloc_var_, ...) plus three
 // phase entry points driving the GPU pipeline (reference
 // include/fesom2-accelerate.h:128-236, src/fesom2-accelerate.cu:258-379).
-// The TPU equivalent cannot launch kernels from C — the production step is a
-// jitted XLA/Pallas program — so this shim embeds CPython and drives
+// Here the production step is a jitted XLA program that C cannot launch
+// directly, so this shim embeds CPython and drives
 // fesom2_accelerate_tpu.host_embed, which wraps the caller's buffers
 // zero-copy and runs the jitted step.  Same binding style as the reference
 // (trailing-underscore names, pointer-to-scalar args, istat out-params,
@@ -16,6 +16,8 @@
 // f2t_* calls are safe from any host thread and from hosts that initialized
 // Python themselves.  When this shim owns the interpreter it releases the
 // GIL after init (PyEval_SaveThread) so the GILState API works uniformly.
+// Interpreter start-up runs once (std::call_once), so concurrent first
+// calls from several host threads are safe too.
 //
 // Build: make host   (links libpython via python3-config --embed)
 
@@ -23,21 +25,25 @@
 
 #include <cstdint>
 #include <cstdio>
+#include <mutex>
 
 namespace {
 
 PyObject *g_mod = nullptr;  // fesom2_accelerate_tpu.host_embed
 bool g_owns_interp = false;
 PyThreadState *g_saved = nullptr;  // main thread state parked after init
+std::once_flag g_init_once;
 
 // Initialize the interpreter if no host did, then park the GIL so every
 // entry (from any thread) can use PyGILState_Ensure.
 void ensure_interpreter() {
-  if (!Py_IsInitialized()) {
-    Py_InitializeEx(0);
-    g_owns_interp = true;
-    g_saved = PyEval_SaveThread();
-  }
+  std::call_once(g_init_once, [] {
+    if (!Py_IsInitialized()) {
+      Py_InitializeEx(0);
+      g_owns_interp = true;
+      g_saved = PyEval_SaveThread();
+    }
+  });
 }
 
 // RAII GIL hold for one ABI call.
@@ -96,7 +102,7 @@ void f2t_init_(int *istat) {
 // One-time mesh transfer + solver build (reference transfer_mesh_ +
 // alloc_var_ phase).  elem_nodes: [n_elems, 3] int32 row-major, 0-based;
 // nlev_elem: [n_elems] int32; node_xy: [n_nodes, 2] f64.
-// backend: 0 = XLA f64 (correctness), 1 = fused Pallas f32 (TPU production).
+// backend: 0 = f64 step, 1 = f32 step (both the XLA stage chain).
 // dt_milli: timestep in 1e-3 units.
 void f2t_setup_(const int *n_elems, const int *nl, const int *elem_nodes,
                 const int *nlev_elem, const int *n_nodes,

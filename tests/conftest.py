@@ -1,7 +1,7 @@
 """Test configuration.
 
-Tests run on the CPU backend with 8 virtual devices (so multi-chip sharding
-is exercised without TPU hardware) and with x64 enabled, because the
+Tests run on the CPU backend with 8 virtual devices (so multi-device
+sharding is exercised without several GPUs) and with x64 enabled, because the
 correctness gate is float64 — matching the reference's ``real_type = double``
 (reference include/fesom2-accelerate.h:10).  Must run before jax is imported.
 """

@@ -1,26 +1,22 @@
 """Worker for tests/test_multiprocess.py: one of N OS processes running the
 sharded FCT-ALE step over a process-spanning device mesh (gloo CPU
-collectives standing in for ICI/DCN).
+collectives standing in for the interconnect).
 
 Usage: python multiproc_worker.py <coordinator> <num_procs> <proc_id>
-       <backend> <outfile> [<n_steps> <iter_yn>]
+       <outfile> [<n_steps> <iter_yn>]
 
 Writes gathered (global) owned-node results to <outfile> (.npz) so the
-parent can compare against the single-process run.  backend="pallas" runs
-the fused 4-kernel production chain per shard (interpret mode on CPU —
-same traced program, same ppermute collectives, same interior/boundary
-b3h split + fixup).
+parent can compare against the single-process run.
 """
 
-import contextlib
 import os
 import sys
 
 
 def main():
-    coordinator, n_procs, pid, backend, outfile = sys.argv[1:6]
-    n_steps = int(sys.argv[6]) if len(sys.argv) > 6 else 1
-    iter_yn = bool(int(sys.argv[7])) if len(sys.argv) > 7 else False
+    coordinator, n_procs, pid, outfile = sys.argv[1:5]
+    n_steps = int(sys.argv[5]) if len(sys.argv) > 5 else 1
+    iter_yn = bool(int(sys.argv[6])) if len(sys.argv) > 6 else False
     n_procs, pid = int(n_procs), int(pid)
 
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
@@ -49,33 +45,18 @@ def main():
     from fesom2_accelerate_tpu.mesh import generate_planar_mesh, random_fields
     from fesom2_accelerate_tpu.parallel import ShardedFctAleSolver
 
-    if backend == "pallas":
-        # plain interpret=True, NOT force_tpu_interpret_mode: the TPU-sim's
-        # callbacks deadlock under multi-process shard_map (kernels.py)
-        from fesom2_accelerate_tpu.ops.pallas import kernels
-
-        kernels.set_interpret(True)
-    interp = contextlib.nullcontext()
-
     mesh = generate_planar_mesh(preset="tiny")
     cfg = FctAleConfig(dt=0.5, iter_yn=iter_yn, dtype=jnp.float32,
                        flux_eps=1e-7)
-    with interp:
-        solver = ShardedFctAleSolver(mesh, cfg, devices=devices,
-                                     backend=backend)
-        assert solver._multiproc
-        if backend == "pallas":
-            # multi-process runs must also take the PRODUCTION packed+DIA
-            # forms (round-4: boundary-part padding no longer degrades)
-            assert solver.ps.pack_K > 0, "multiproc parts must pack"
-            assert solver.degraded == []
-        fields = random_fields(mesh, seed=0, dtype=np.float32)
-        state = solver.init_state(fields)
-        if n_steps == 1:
-            state = solver.step(state)
-        else:
-            state = solver.run(state, n_steps)
-        jax.block_until_ready(state)
+    solver = ShardedFctAleSolver(mesh, cfg, devices=devices)
+    assert solver._multiproc
+    fields = random_fields(mesh, seed=0, dtype=np.float32)
+    state = solver.init_state(fields)
+    if n_steps == 1:
+        state = solver.step(state)
+    else:
+        state = solver.run(state, n_steps)
+    jax.block_until_ready(state)
 
     out = {}
     keys = ["fct_plus", "fct_minus", "fct_adf_v"]

@@ -1,7 +1,6 @@
 """RCM reordering: locality restoration for arbitrary input orderings."""
 
 import numpy as np
-import pytest
 
 from fesom2_accelerate_tpu.mesh import generate_planar_mesh, random_fields
 from fesom2_accelerate_tpu.mesh.ordering import bandwidth, rcm_order, reorder_mesh
@@ -76,23 +75,3 @@ def test_reorder_preserves_physics():
               "del_ttf_advhoriz"):
         masked_allclose(out_new[k], out_ref[k][..., perm], rtol=1e-11,
                         atol=1e-12, msg=f"reordered[{k}]")
-
-
-def test_pallas_plans_work_after_rcm():
-    """A scrambled mesh fails the window planner; after RCM it plans.
-
-    Uses the pi-scale mesh: the locality guard only fires on meshes large
-    enough that windowing matters (plan.py)."""
-    from fesom2_accelerate_tpu.ops.pallas.plan import build_gather_plan
-
-    base, shuffled = _shuffled_mesh(seed=2, preset="pi")
-    valid = np.ones_like(shuffled.elem_nodes, dtype=bool)
-    with pytest.raises(ValueError):
-        build_gather_plan(shuffled.elem_nodes, valid, 256,
-                          shuffled.n_nodes)
-    reordered, _ = reorder_mesh(shuffled)
-    p = build_gather_plan(reordered.elem_nodes,
-                          np.ones_like(reordered.elem_nodes, dtype=bool),
-                          256, reordered.n_nodes)
-    # window bounded by tile + 2*RCM bandwidth, far below the mesh size
-    assert p.window <= 1024

@@ -54,23 +54,6 @@ def test_time_stages_report(tiny_mesh):
         assert v["ms"] > 0 and v["GBps"] >= 0
 
 
-def test_tune_step_validates_against_oracle():
-    """The whole-step autotuner (kernel_tuner analogue) validates every
-    swept tile configuration against the f64 oracle."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from fesom2_accelerate_tpu.mesh import generate_planar_mesh
-    from fesom2_accelerate_tpu.utils import tuning
-
-    mesh = generate_planar_mesh(preset="tiny")
-    # tiles must be 128-aligned: the static DIA lane rolls assume it, and
-    # build_pallas_data now rejects unaligned tiles loudly (advisor r4)
-    with pltpu.force_tpu_interpret_mode():
-        results = tuning.tune_step(mesh, tiles=(128,), steps=2)
-    assert all(r.ok for r in results)
-    assert tuning.best(results) is not None
-
-
 def test_checkpoint_npz_fallback_roundtrip(tmp_path, tiny_mesh):
     """use_orbax=False path: write npz, honor the recorded format on load
     even though orbax IS importable in this environment (round-2 weak #7:
@@ -122,31 +105,3 @@ def test_sharded_checkpoint_resume_across_partitions(tmp_path):
               "del_ttf_advhoriz"):
         masked_allclose(sh4.gather_node(out[k]), np.asarray(ref_out[k]),
                         rtol=1e-11, atol=1e-11, msg=f"resumed[{k}]")
-
-
-def test_sharded_checkpoint_pallas_padded_state(tmp_path):
-    """The pallas-sharded solver's PADDED packed state round-trips through
-    a checkpoint: gather_state unpads/unpacks per part before saving, and
-    load re-scatters into the padded kernel layout."""
-    from fesom2_accelerate_tpu.ops.pallas import kernels as pk
-    from fesom2_accelerate_tpu.parallel import ShardedFctAleSolver
-
-    mesh = generate_planar_mesh(preset="small")
-    fields = random_fields(mesh, seed=7, dtype=np.float32)
-    cfg = FctAleConfig(dt=0.6, dtype=jnp.float32, flux_eps=1e-7)
-
-    pk.set_interpret(True)
-    try:
-        sh = ShardedFctAleSolver(mesh, cfg, backend="pallas")
-        assert sh.ps.pack_K > 0
-        state = sh.step(sh.init_state(fields))
-        sh.save_checkpoint(tmp_path / "ck", state, step=1)
-        st2, step = sh.load_checkpoint(tmp_path / "ck")
-        assert step == 1
-        g1 = sh.gather_state(state)
-        g2 = sh.gather_state(st2)
-        for k in g1:
-            np.testing.assert_allclose(g2[k], g1[k], rtol=2e-6, atol=2e-6,
-                                       err_msg=f"pallas-ckpt[{k}]")
-    finally:
-        pk.set_interpret(False)
